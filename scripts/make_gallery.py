@@ -2,7 +2,7 @@
 """Render a small doc gallery: one still per render path / scene mode.
 
 CPU-friendly sizes (tiny particle counts, binned engine); deterministic
-seeds. Writes docs/gallery/*.png.
+seeds; ``--gpu`` renders on the GPU instead. Writes docs/gallery/*.png.
 """
 from __future__ import annotations
 
@@ -13,10 +13,12 @@ import os
 import sys
 
 import jax
-if "--tpu" not in sys.argv:
+if "--gpu" not in sys.argv:
     jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+from sph_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from sph_tpu.scene.scene import Scene
 from sph_tpu.scene.settings import SceneSettings

@@ -1,16 +1,16 @@
-"""sph_tpu — a TPU-native Smoothed Particle Hydrodynamics framework.
+"""sph_tpu — a JAX Smoothed Particle Hydrodynamics framework for GPUs.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of
 smilne36/ComponentFrameworks-smoothed-particle-hydrodynamics (a Windows/OpenGL
 compute-shader SPH fluid simulator + music-visualizer art tool), re-designed
-TPU-first:
+as JAX programs:
 
 - The per-substep GPU dispatch pipeline (ClearGrid / BuildGrid / SPHFluid /
   OBBConstraints / impulse shaders, reference ``SPHFluid3D.cpp:359-450``)
   collapses into one jitted, purely functional step function.
 - The atomicExchange linked-list spatial hash (``BuildGrid.comp``) becomes a
   sort-based cell list: cell-key sort + dense fixed-capacity bins feeding
-  either a vectorized jnp sweep or a Pallas neighbor-tile kernel.
+  a vectorized jnp gather sweep (all-pairs scenes: a fused Pallas kernel).
 - The Scene0p "god object" splits into engine/scene modules; render paths
   become a headless frame-export pipeline (palettes, color drives, splatting).
 - Multi-chip scaling (a new capability) shards the particle axis over a
@@ -18,11 +18,11 @@ TPU-first:
 
 Layout:
     core/       ParticleState SoA pytree, FluidParams, container/shape specs
-    physics/    SPH kernels, brute-force oracle, cell-list solver, constraints,
-                impulses, emitters
-    neighbors/  grid sizing, cell keys, sorting, dense bins, Pallas kernels
+    physics/    SPH kernels, brute-force oracle + its fused Pallas kernel,
+                cell-list solver, constraints, impulses, emitters
+    neighbors/  cell keys, sorting, dense bins (gather and binned-plane)
     engine/     substep composition, frame loop, scene orchestration
-    parallel/   multi-chip domain decomposition (shard_map)
+    parallel/   multi-device domain decomposition (shard_map)
     io/         preset KV text format, state checkpointing
     audio/      band-split DSP, offline track analysis, drop detection
     viz/        palettes, color drives, point-splat renderer, frame export

@@ -34,7 +34,7 @@ class BenchConfig:
     n_target: int
     box_half: Tuple[float, float, float]
     h: float = 0.28
-    neighbor_impl: str = "pallas"
+    neighbor_impl: str = "cell"
     box_euler_deg: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     surface_tension: float = 0.0728
     ghosts: bool = False
@@ -47,21 +47,13 @@ class BenchConfig:
                                       # (SPHFluid3D.cpp:166-169);
                                       # "local" = lattice rotated with
                                       # the container (rotated_512k)
-    emit_rows: bool = False           # in-kernel particle-row emit:
-                                      # measured 9x SLOWER than the
-                                      # row gather as built (serial
-                                      # tile DMAs — PERF.md round-4
-                                      # A/B); re-enable per config
-                                      # only when a pipelined version
-                                      # measures as a win
 
 
 CONFIGS = {
     # brute_pallas = the same all-pairs O(N^2) enumeration BASELINE
-    # config 1 mandates, evaluated as two Pallas kernels instead of the
-    # lax.map tile loop (physics/brute_pallas.py; ~1k serialized tiny
-    # blocks made the oracle latency-bound at 9.8 ms/substep).  Pass
-    # impl_override="brute" to bench the lax.map oracle itself.
+    # config 1 mandates, as two fused GPU kernels instead of the oracle's
+    # lax.map tile loop (physics/brute_pallas.py).  Pass
+    # neighbor_impl="brute" to run the lax.map oracle itself.
     "dam_break_8k": BenchConfig(
         name="dam_break_8k", n_target=8192, box_half=(7.0, 7.0, 7.0),
         neighbor_impl="brute_pallas", surface_tension=0.0),
@@ -70,27 +62,20 @@ CONFIGS = {
     "rotated_512k": BenchConfig(
         name="rotated_512k", n_target=524288, box_half=(15.0, 15.0, 15.0),
         box_euler_deg=(20.0, 0.0, 30.0), wave_impulse=True,
-        # round 5: spawn_rotation="local" — the lattice rotates WITH the
-        # container, so no particle spawns outside it.  The reference
-        # ignores rotation at spawn (SPHFluid3D.cpp:166-169) and lets
-        # the constraint pass collapse the out-of-box corners onto the
-        # faces; those projection sheets were the rounds-3/4 "steady
-        # ~4.2k overflow / 322 ms" (a transient artifact, not fluid).
-        # An AABB-spanning world lattice was also tried and REJECTED:
-        # its deep corner wedge collapses at 512k (rho -> 5e4, NaN —
-        # PERF.md round 5).  Capacity 8 measured 97.3 ms/substep vs
-        # 133.4 at 16 with overflow 0 in the bench window (round-5
-        # seq C); deeper-settled states that push cells past 8 route
-        # through the exact fallback and show up loudly in the bench
-        # overflow audit (<= movf 8192 asserted)
-        spawn_rotation="local",
-        cell_capacity=8),
+        # The lattice rotates WITH the container, so no particle spawns
+        # outside it.  The reference ignores rotation at spawn
+        # (SPHFluid3D.cpp:166-169) and lets the constraint pass collapse
+        # the out-of-box corners onto the faces, which packs cells far
+        # past any fixed capacity.
+        spawn_rotation="local"),
     "ghost_1m": BenchConfig(
         name="ghost_1m", n_target=1_000_000, box_half=(18.5, 18.5, 18.5),
-        ghosts=True),
+        # capacity 8 overflowed by one row within 32 substeps on the
+        # card (PERF.md); 12 keeps every row a neighbor source
+        ghosts=True, cell_capacity=12),
     "export_4m": BenchConfig(
         name="export_4m", n_target=4_000_000, box_half=(41.0, 41.0, 41.0),
-        h=0.4, grid_cap=256, viz_export=True, emit_rows=False),
+        h=0.4, grid_cap=256, viz_export=True),
 }
 
 
@@ -115,10 +100,5 @@ def build(cfg: BenchConfig, seed: int = 0, neighbor_impl: Optional[str] = None):
                              np.asarray(cfg.box_euler_deg), cfg.h,
                              cap=cfg.grid_cap)
     sim = SimConfig(n=state.n, grid_dims=dims, neighbor_impl=impl,
-                    cell_capacity=cfg.cell_capacity,
-                    # static fluid-row bound for the output gather
-                    # (ghosts/pad never gather)
-                    n_fluid=int(spawn.count) - (
-                        int(shell.count) if cfg.ghosts else 0),
-                    emit_rows=cfg.emit_rows)
+                    cell_capacity=cfg.cell_capacity)
     return state, params, sim

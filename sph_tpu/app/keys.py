@@ -2,7 +2,7 @@
 
 The reference's main user-facing feature is a live ImGui panel
 (``Scene0p.cpp:595-1265``) mutating simulation/look parameters while
-the sim runs.  Headless TPU runs have no GL window, so this maps the
+the sim runs.  Headless runs have no GL window, so this maps the
 panel's most-used controls onto raw-terminal keys; every mutation goes
 through the same ``SceneRunner.apply_settings`` / live-camera state the
 preset and sequencer paths use, so nothing here needs a recompile.

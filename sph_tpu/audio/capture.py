@@ -2,7 +2,7 @@
 
 The reference captures whatever the machine is playing via a Windows
 WASAPI *loopback* client on a background thread
-(``ComponentFramework/AudioReactive.cpp:62-164``).  The TPU rebuild
+(``ComponentFramework/AudioReactive.cpp:62-164``).  This rebuild
 targets Linux hosts, where the equivalent is reading the PulseAudio /
 PipeWire monitor (or an ALSA device) through a PCM-streaming child
 process:

@@ -1,4 +1,4 @@
-"""Live audio reactor — the TPU rebuild of ``AudioReactive.{h,cpp}``.
+"""Live audio reactor — the JAX rebuild of ``AudioReactive.{h,cpp}``.
 
 The reference captures system audio via Windows WASAPI loopback on a
 background thread and publishes bass/mid/treble envelopes as atomics

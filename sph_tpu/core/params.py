@@ -16,7 +16,8 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from sph_tpu.utils.pytree import pytree_dataclass
 
 # Shape type ids — reference SPHFluid3D.h:117-118
 SHAPE_BOX = 0
@@ -45,7 +46,7 @@ def _vec3(x, y, z) -> jax.Array:
     return jnp.asarray([x, y, z], dtype=jnp.float32)
 
 
-@struct.dataclass
+@pytree_dataclass
 class FluidParams:
     """Live-tunable physics + container parameters (all traced float32/int32).
 
@@ -181,7 +182,18 @@ def rotation_matrix(euler_deg: jax.Array) -> jax.Array:
         jnp.stack([sz, cz, jnp.float32(0)]),
         jnp.stack([jnp.float32(0), jnp.float32(0), jnp.float32(1)]),
     ])
-    return (rz @ ry @ rx).astype(jnp.float32)
+    hi = jax.lax.Precision.HIGHEST
+    return jnp.matmul(jnp.matmul(rz, ry, precision=hi), rx,
+                      precision=hi).astype(jnp.float32)
+
+
+def rows_times(v: jax.Array, m: jax.Array) -> jax.Array:
+    """``v @ m`` for [N,3] rows and a 3x3 ``m``, as float32 multiply-adds.
+
+    A GPU may run a float32 ``@`` in TF32 (about three decimal digits);
+    at container scale that error moves particles across cells and walls.
+    """
+    return v[:, 0:1] * m[0] + v[:, 1:2] * m[1] + v[:, 2:3] * m[2]
 
 
 def effective_half(params: FluidParams) -> jax.Array:
@@ -254,6 +266,10 @@ def rotation_matrix_np(euler_deg) -> np.ndarray:
     return (rz @ ry @ rx).astype(np.float32)
 
 
+# Neighbor engines: the all-pairs oracle, the same all-pairs sums as one
+# fused GPU kernel, the gather cell list and the binned-plane cell list.
+NEIGHBOR_IMPLS = ("brute", "brute_pallas", "cell", "binned")
+
 GRID_DIM_CAP = 160  # per-axis cell cap, reference SPHFluid3D.cpp:298
 
 
@@ -266,7 +282,7 @@ def compute_grid_dims(shape_type: int, box_half, box_euler_deg, h: float,
     ``ext_i = sum_j |R_ij| half_j + cellSize``, ``dim = ceil(2 ext / cell)``
     clamped to [1, 160] — then rounded UP to a multiple of ``round_to`` so
     live container edits rarely change the static dims (extra cells simply
-    stay empty; jit shape stability beats exact sizing on TPU).
+    stay empty; jit shape stability beats exact sizing).
     """
     # Binning happens in CONTAINER-LOCAL frame (grid_cell_coords), so the
     # grid needs only the unrotated effective half + 1 cell margin — the
@@ -301,7 +317,7 @@ def grid_cell_coords(pos: jax.Array, params: FluidParams,
     grid stays tight instead of covering the rotated AABB.  Any spatial
     partition gives identical physics — only pair distances matter."""
     rot = rotation_matrix(params.box_euler_deg)
-    local = (pos - params.box_center[None, :]) @ rot     # rows: R^T d
+    local = rows_times(pos - params.box_center[None, :], rot)  # R^T d
     gmin = grid_min(params)
     c = jnp.floor((local - gmin[None, :]) / params.h).astype(jnp.int32)
     return jnp.clip(c, 0, jnp.asarray(dims, jnp.int32)[None, :] - 1)
@@ -318,87 +334,21 @@ class SimConfig:
     n: int                                 # padded particle capacity
     grid_dims: Tuple[int, int, int]        # (nx, ny, nz) static cell dims
     cell_capacity: int = 8                 # max particles binned per cell
-    neighbor_impl: str = "cell"            # 'brute' | 'cell' | 'pallas'
+    neighbor_impl: str = "cell"            # one of NEIGHBOR_IMPLS
     river_mode: bool = False
     fountain_mode: bool = False
     stencil_capacity: int = 0              # >0 enables Liquid Logo targets
     terrain_res: Tuple[int, int] = (64, 64)
     max_substeps: int = 16                 # per-frame cap, Scene0p.h:48
-    brute_tile: int = 1024                 # row tile for the O(N^2) oracle
-    sweep_unroll: bool = False             # statically unroll the 27 offsets
-                                           # (faster on TPU, slower compiles)
-    plane_max_cwh: int = 1536              # pallas plane chunk width cap:
-                                           # smaller = finer occupancy
-                                           # gating, more halo overhead
-    n_fluid: int = 0                       # static UPPER bound on fluid
-                                           # rows (0 = n): sorted fluid
-                                           # rows come first, so the
-                                           # output gather touches only
-                                           # these (ghost/pad rows are
-                                           # reassembled maskwise)
-    sweep_active_frac: float = 0.625       # compact-grid cap as a
-                                           # fraction of (q, c) blocks;
-                                           # <=0 or >=1 = dense sweeps
-                                           # only (PERF.md roofline #2)
-    emit_rows: bool = False                # force kernel streams its
-                                           # outputs straight to
-                                           # window-padded particle
-                                           # rows instead of the
-                                           # per-substep table row
-                                           # gather (roofline #4).
-                                           # MEASURED LOSS as built:
-                                           # serial per-tile DMA waits
-                                           # cost 278 vs 30 ms/substep
-                                           # at 131k (PERF.md round-4
-                                           # A/B) — off until the
-                                           # double-buffered version
-                                           # beats the gather
-    emit_tile: int = 64                    # emit DMA tile (rows);
-                                           # <=0 disables emit
-    exact_overflow: bool = True            # rank-overflow particles get
-                                           # an exact update (switch-
-                                           # gated: free when no cell
-                                           # exceeds capacity) instead
-                                           # of ballistic motion
-    overflow_allpairs: bool = False        # A/B: the exact fallback
-                                           # sources from ALL n sorted
-                                           # rows (movf x n pairs; the
-                                           # round-4 first cut — 2.3 s
-                                           # per substep at 1M with 170
-                                           # steady overflow) instead of
-                                           # the 27-cell neighborhood
-                                           # gather
-    compact_force: bool = True             # apply the compact-grid
-                                           # active-block list to the
-                                           # force+xsph kernel too;
-                                           # False = density compact,
-                                           # force dense (seq4 profiled
-                                           # force cmpct 119 vs dense
-                                           # 91 ms at 1M — A/B knob)
-    overflow_inline: bool = False          # A/B: run the B=512
-                                           # neighborhood fallback
-                                           # UNCONDITIONALLY (no
-                                           # lax.switch/cond boundary —
-                                           # tests PERF.md finding 8's
-                                           # layout infection across
-                                           # branch boundaries; rows
-                                           # past 512 stay ballistic
-                                           # for the substep)
-    gather_cols: bool = False              # output gather variant: per-
-                                           # field two-gather + select
-                                           # (no [10, T] concat / [T, 10]
-                                           # transpose materialization)
-                                           # instead of the one row
-                                           # gather on the transposed
-                                           # table — A/B via profile
-                                           # stage output_gather(cols)
-    gather_unique: bool = False            # A/B: tag the output row
-                                           # gather's indices as a
-                                           # permutation
-                                           # (unique_indices=True) —
-                                           # the round-4 seq4 idea for
-                                           # the 42 ms latency-bound
-                                           # gather at 1M
+    sweep_unroll: bool = False             # binned engine: statically
+                                           # unroll the 27 offsets (larger
+                                           # graph, slower compiles)
+
+    def __post_init__(self):
+        if self.neighbor_impl not in NEIGHBOR_IMPLS:
+            raise ValueError(
+                f"unknown neighbor_impl {self.neighbor_impl!r}; "
+                f"choose one of {NEIGHBOR_IMPLS}")
 
     @property
     def num_cells(self) -> int:

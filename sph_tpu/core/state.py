@@ -1,13 +1,13 @@
 """Particle state: struct-of-arrays pytree + host-side spawn logic.
 
 The reference keeps an 80-byte AoS ``SPHParticle`` in an SSBO
-(``SPHFluid3D.h:12-24``); on TPU the same state lives as an SoA pytree so
-each field maps onto (8,128)-tiled f32 arrays.  Spawn logic mirrors
+(``SPHFluid3D.h:12-24``); here the same state lives as an SoA pytree so
+each field is one contiguous f32/i32 array.  Spawn logic mirrors
 ``SPHFluidGPU::InitializeParticles`` (``SPHFluid3D.cpp:85-263``): lattice at
 spacing 0.85h, bottom-anchored block filling 40% of container height,
 rejection-sampled against the analytic shape, optional jitter, color-group
 tagging by mix pattern.  Padding slots beyond the spawned count carry
-``valid=0`` and are excluded from all sums (the TPU analogue of sizing the
+``valid=0`` and are excluded from all sums (the analogue of sizing the
 SSBO to the exact particle count).
 """
 from __future__ import annotations
@@ -18,14 +18,14 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from sph_tpu.core import params as P
+from sph_tpu.utils.pytree import pytree_dataclass
 
 PAD = 256  # particle capacity rounded up to this multiple
 
 
-@struct.dataclass
+@pytree_dataclass
 class ParticleState:
     pos: jax.Array          # [N,3] f32
     vel: jax.Array          # [N,3] f32

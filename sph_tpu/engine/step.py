@@ -1,4 +1,4 @@
-"""Engine step composition: the TPU equivalent of ``DispatchCompute``.
+"""Engine step composition: the equivalent of the reference's ``DispatchCompute``.
 
 The reference's per-substep GPU pipeline (``SPHFluid3D.cpp:359-450``):
 
@@ -18,14 +18,14 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from sph_tpu.core.params import FluidParams, SimConfig
 from sph_tpu.core.state import ParticleState
 from sph_tpu.physics import brute_force, cell_solver, constraints, emitters
+from sph_tpu.utils.pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class SceneBuffers:
     """Auxiliary device buffers owned by the scene (terrain SSBO, stencil
     targets SSBO, fountain RNG counter — reference bindings 5 and 7)."""
@@ -33,6 +33,8 @@ class SceneBuffers:
     stencil_targets: jax.Array  # [S,3] f32 (S = config.stencil_capacity or 1)
     stencil_count: jax.Array    # [] i32
     fountain_seed: jax.Array    # [] u32, advances per fountain dispatch
+    overflow: jax.Array         # [] i32 most rows past cell_capacity in
+                                # any substep since create (0 = exact)
 
     @classmethod
     def create(cls, config: SimConfig) -> "SceneBuffers":
@@ -43,47 +45,39 @@ class SceneBuffers:
             stencil_targets=jnp.zeros((s, 3), jnp.float32),
             stencil_count=jnp.zeros((), jnp.int32),
             fountain_seed=jnp.zeros((), jnp.uint32),
+            overflow=jnp.zeros((), jnp.int32),
         )
 
 
 def sph_solve(state: ParticleState, params: FluidParams, dt: jax.Array,
-              config: SimConfig, aux=None) -> ParticleState:
+              config: SimConfig) -> Tuple[ParticleState, jax.Array]:
     """The SPH force/integrate stage with the configured neighbor engine.
 
-    ``aux``: neighbor-engine frame constants (the pallas engine's static
-    ghost tables, built once per frame by :func:`neighbor_aux`)."""
+    Returns the new state and the number of rows past ``cell_capacity``
+    (always 0 for the all-pairs engines).  The cell engine leaves such
+    rows out as neighbor sources and the binned engine moves them
+    ballistically, so any nonzero count means inexact physics."""
+    exact = jnp.zeros((), jnp.int32)
     if config.neighbor_impl == "brute":
-        return brute_force.substep(state, params, dt)
+        return brute_force.substep(state, params, dt), exact
     if config.neighbor_impl == "brute_pallas":
         from sph_tpu.physics import brute_pallas
-        return brute_pallas.substep(state, params, dt)
+        return brute_pallas.substep(state, params, dt), exact
     if config.neighbor_impl == "cell":
         return cell_solver.substep(state, params, dt, config)
     if config.neighbor_impl == "binned":
         from sph_tpu.neighbors import binned
         return binned.substep(state, params, dt, config)
-    if config.neighbor_impl == "pallas":
-        from sph_tpu.neighbors import pallas_sweeps
-        return pallas_sweeps.substep(state, params, dt, config, aux=aux)
     raise ValueError(f"unknown neighbor_impl: {config.neighbor_impl}")
 
 
-def neighbor_aux(state: ParticleState, params: FluidParams,
-                 config: SimConfig):
-    """Frame-constant neighbor data (ghost tables for the pallas
-    engine).  Ghost positions and per-face activation never change
-    within a frame's substeps, so this is hoisted out of the scan."""
-    if config.neighbor_impl != "pallas":
-        return None
-    from sph_tpu.neighbors import pallas_sweeps
-    return pallas_sweeps.build_aux(state, params, config)
-
-
 def substep(state: ParticleState, params: FluidParams, buffers: SceneBuffers,
-            dt: jax.Array, config: SimConfig, aux=None
+            dt: jax.Array, config: SimConfig
             ) -> Tuple[ParticleState, SceneBuffers]:
     """One full substep: solve -> container -> river -> fountain."""
-    state = sph_solve(state, params, dt, config, aux=aux)
+    state, overflow = sph_solve(state, params, dt, config)
+    buffers = buffers.replace(
+        overflow=jnp.maximum(buffers.overflow, overflow))
     state = constraints.apply_container(state, params)
     if config.river_mode:
         state = constraints.apply_terrain(state, buffers.terrain, params)
@@ -97,31 +91,30 @@ def substep(state: ParticleState, params: FluidParams, buffers: SceneBuffers,
     return state, buffers
 
 
+@functools.partial(jax.jit, static_argnames=("n_substeps", "config"))
 def run_substeps(state: ParticleState, params: FluidParams,
                  buffers: SceneBuffers, dt: jax.Array, n_substeps: int,
                  config: SimConfig) -> Tuple[ParticleState, SceneBuffers]:
-    """``n_substeps`` fixed-dt substeps under one jit (lax.scan).
-
-    Frame-constant neighbor aux (the pallas engine's static ghost
-    tables) is built once here and threaded through the scan."""
-    aux = neighbor_aux(state, params, config)
-    return _run_substeps_jit(state, params, buffers, dt, n_substeps,
-                             config, aux)
-
-
-@functools.partial(jax.jit, static_argnames=("n_substeps", "config"))
-def _run_substeps_jit(state: ParticleState, params: FluidParams,
-                      buffers: SceneBuffers, dt: jax.Array,
-                      n_substeps: int, config: SimConfig, aux
-                      ) -> Tuple[ParticleState, SceneBuffers]:
+    """``n_substeps`` fixed-dt substeps under one jit (lax.scan)."""
     def body(carry, _):
         st, buf = carry
-        st, buf = substep(st, params, buf, dt, config, aux=aux)
+        st, buf = substep(st, params, buf, dt, config)
         return (st, buf), None
 
     (state, buffers), _ = jax.lax.scan(body, (state, buffers), None,
                                        length=n_substeps)
     return state, buffers
+
+
+def require_exact(buffers: SceneBuffers, where: str = "run") -> None:
+    """Raise if any substep since ``buffers`` was created left rows past
+    ``cell_capacity`` (inexact neighbor sums); see :func:`sph_solve`."""
+    overflow = int(buffers.overflow)
+    if overflow:
+        raise RuntimeError(
+            f"{where}: {overflow} rows overflowed cell_capacity in some "
+            f"substep; their neighbor sums were inexact (raise "
+            f"cell_capacity)")
 
 
 def substeps_for_frame(frame_dt: float, dt: float, max_substeps: int,

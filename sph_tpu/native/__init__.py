@@ -2,7 +2,7 @@
 
 The reference keeps its sequential host-side work in C++ (the audio DSP
 ``AudioBands.h``, decode loops in ``ReelExport.cpp``); this package holds
-the TPU rebuild's equivalents.  Libraries are built lazily with g++ into
+this rebuild's equivalents.  Libraries are built lazily with g++ into
 ``_build/`` on first use; every consumer has a pure-Python fallback so
 the framework still works without a compiler.
 """

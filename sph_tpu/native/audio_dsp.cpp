@@ -1,6 +1,6 @@
 // Native band-split + envelope DSP core (C ABI, loaded via ctypes).
 //
-// TPU-native rebuild of the reference's shared audio DSP
+// Rebuild of the reference's shared audio DSP
 // (ComponentFramework/AudioBands.h:44-58 ProcessSample,
 //  ComponentFramework/ReelExport.cpp:101-149 AnalyzeTrack inner loop):
 // one-pole band split (bass = LP 150 Hz; mid = LP 2 kHz then HP 250 Hz;

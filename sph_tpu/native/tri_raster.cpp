@@ -2,7 +2,7 @@
 // backbone of the headless mesh passes (terrain mesh R12,
 // terrainVert/Frag.glsl + Scene0p.cpp:2942-3123, and the instanced OBJ
 // mesh path, Mesh.cpp:20-54 + defaultVert.glsl:30-35).  The GL passes
-// in the reference rasterize on the GPU; headless TPU rendering keeps
+// in the reference rasterize on the GPU; headless rendering keeps
 // the image loop on host where a tight C++ scanline is ~50x the numpy
 // fallback.
 //

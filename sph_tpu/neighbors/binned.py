@@ -1,17 +1,19 @@
-"""Dense binned-plane neighbor engine — the TPU-shaped cell list.
+"""Dense binned-plane neighbor engine: a cell list without per-neighbor gathers.
 
-Measured on TPU v5e, per-row random access (gather/scatter) costs ~10-60 ns
-per row, so the gather-per-neighbor cell list (``physics/cell_solver.py``)
-is hopeless on TPU.  This engine restructures the whole substep so the hot
-loops touch memory only through dense elementwise ops and slices:
+The gather cell list (``physics/cell_solver.py``) reads every neighbor
+slot through a row gather.  This engine restructures the whole substep so
+the hot loops touch memory only through dense elementwise ops and slices
+(on the GPU it measured 10-23x slower than the gather engine, PERF.md; it
+stays as the local engine of the multi-device slab decomposition,
+``parallel/slabs.py``):
 
 1.  ``lax.sort`` with the cell key + all per-particle fields as payload
-    operands (no permutation gathers; ~12 ms at 1M).
+    operands (no permutation gathers).
 2.  Per-cell rank from the sorted keys via ``associative_scan`` (no
     searchsorted, no gathers).
 3.  ONE packed row scatter places each particle's fields into its unique
-    slot of a dense [C, K] bin table (slot = key*K + rank, ascending —
-    the sorted+unique scatter is DMA-speed on TPU).
+    slot of a dense [C, K] bin table (slot = key*K + rank, ascending and
+    unique).
 4.  The bins reshape into field planes ``[K, rows, x]`` where
     rows = y + ny*z (sublane-tiled) and x is the lane dimension, each
     halo-padded with a far-away sentinel position.  A neighbor-cell
@@ -67,7 +69,7 @@ def compute_keys(state: ParticleState, params: FluidParams,
 
 def sort_state(state: ParticleState, key: jax.Array,
                contrib: jax.Array) -> SortedState:
-    """Multi-operand stable sort by cell key — the TPU BuildGrid.
+    """Multi-operand stable sort by cell key — the BuildGrid analogue.
 
     ``contrib`` is the per-particle neighbor-source mask (ghost-face
     activation folded in); it rides along as flag bit 3.
@@ -171,9 +173,10 @@ def build_bins(s: SortedState, params: FluidParams,
 
 
 def substep(state: ParticleState, params: FluidParams, dt: jax.Array,
-            config: SimConfig) -> ParticleState:
-    """Full binned-plane substep. Returns state in SORTED order (particle
-    identity lives in spawn order via orig_id; see engine docs)."""
+            config: SimConfig) -> Tuple[ParticleState, jax.Array]:
+    """Full binned-plane substep. Returns the state in SORTED order
+    (particle identity lives in spawn order via orig_id) and the count of
+    rows past ``cell_capacity``, which moved ballistically."""
     dims = config.grid_dims
     cap = config.cell_capacity
     unroll = config.sweep_unroll
@@ -182,7 +185,8 @@ def substep(state: ParticleState, params: FluidParams, dt: jax.Array,
     s = sort_state(state, key,
                    state.contrib_mask(params.ghost_face_active))
     bins = build_bins(s, params, dims, cap)
-    return solve_from_bins(s, bins, params, dims, cap, unroll, dt)
+    return (solve_from_bins(s, bins, params, dims, cap, unroll, dt),
+            bins.overflow)
 
 
 def solve_from_bins(s: SortedState, bins: Bins, params: FluidParams,

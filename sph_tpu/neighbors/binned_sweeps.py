@@ -5,11 +5,10 @@ accumulates masked pair terms over [K, rows, nx] planes.  Two drivers share
 the same inner pair math:
 
 - ``unroll=True``  — the 27 offsets are a static python loop, every source
-  a *static* slice.  Best runtime on TPU (XLA fuses the whole sweep, no
-  dynamic-slice lane rotations), but the graph is ~27x bigger, so compiles
-  are slow — use for the TPU hot path where the compile is cached.
+  a *static* slice, so XLA can fuse the whole sweep; the graph is ~27x
+  bigger and compiles slowly.
 - ``unroll=False`` — ``lax.fori_loop`` over the offset table with dynamic
-  slices.  ~27x smaller graph, compiles fast; use on CPU/tests.
+  slices.  ~27x smaller graph, compiles fast (the default).
 
 Pair-term semantics mirror ``physics/common.py`` / ``shaders/SPHFluid.comp``.
 """

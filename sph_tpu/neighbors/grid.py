@@ -2,19 +2,20 @@
 
 The reference builds its neighbor grid with an atomicExchange lock-free
 linked list (``BuildGrid.comp:36``) and walks ``cellHead``/``particleNext``
-chains.  Pointer chasing is hostile to TPUs, so here the grid is a *dense
-fixed-capacity bin table* built from a stable sort of the int32 cell keys:
+chains.  Here the grid is a *dense fixed-capacity bin table* built from a
+stable sort of the int32 cell keys (no atomics, deterministic):
 
     key_i   = x + nx (y + ny z)        (same flatten as BuildGrid.comp:21)
     order   = argsort(key)             (stable; replaces the atomic insert)
     rank_i  = position of i within its cell's segment
     bins[cell * K + rank] = i          (rank >= K overflows are dropped)
 
-``bins`` then answers "who is in cell c" with plain gathers — exactly the
-access pattern XLA and Pallas tile well.  Capacity ``K`` bounds occupancy:
-at rest spacing 0.85h a cell of side h holds ~1.6 particles, so the default
-K = 8 leaves ~5x compression headroom; ``build_bins`` also reports the
-number of dropped (overflowed) particles for observability.
+``bins`` then answers "who is in cell c" with plain gathers.  Capacity
+``K`` bounds occupancy: at rest spacing 0.85h a cell of side h holds ~1.6
+particles, so the default K = 8 leaves ~5x compression headroom.  Rows of
+rank >= K are no neighbor source; ``build_cell_list`` counts them
+(``overflow``) and the engine step reports the count, so a run can refuse
+inexact sums.
 """
 from __future__ import annotations
 

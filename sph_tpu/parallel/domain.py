@@ -2,8 +2,8 @@
 
 A genuinely new capability versus the single-GPU reference (SURVEY.md
 §2.4): the particle axis is sharded across devices with ``shard_map``, and
-neighbor information crosses chips through XLA collectives riding ICI —
-the TPU-native replacement for the reference's single-device
+neighbor information crosses devices through XLA collectives (NCCL
+between GPUs) in place of the reference's single-device
 ``glMemoryBarrier`` pipeline.
 
 Round-1 engine: *gather parallelism* — every device owns N/D particles,
@@ -117,7 +117,7 @@ def _sharded_substep_body(state: ParticleState, params: FluidParams,
 
 def make_sharded_substep(mesh: Mesh, config: SimConfig):
     """Build a jitted multi-chip substep: state sharded on the particle
-    axis, params/buffers replicated, collectives over ICI."""
+    axis, params/buffers replicated, collectives between devices."""
     state_spec = jax.tree_util.tree_map(lambda _: PS(AXIS),
                                         ParticleState.zeros(1))
     rep = PS()

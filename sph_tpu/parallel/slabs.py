@@ -5,7 +5,7 @@ all-gathers every particle): the grid's z axis is split into contiguous
 slabs, one per device.  Each device owns ONLY the particles inside its
 slab and runs the full binned-plane substep (``neighbors/binned.py``)
 on its local grid; neighbor information crosses chips as TWO small
-``lax.ppermute`` exchanges riding ICI:
+``lax.ppermute`` exchanges (NCCL between GPUs):
 
 1. **source halo** — after local binning, each device sends its edge
    z-row plane blocks (``[8, K, ny, LX]`` per direction: pos/vel/ghost
@@ -13,9 +13,7 @@ on its local grid; neighbor information crosses chips as TWO small
    halo rows of their local planes.  The 27-offset sweeps then see
    cross-slab pairs exactly as intra-slab ones.
 2. **density halo** — the force/XSPH sweeps need neighbor *density*, so
-   the per-slot rho/pressure planes exchange edge blocks the same way
-   (the single-device analogue is the clamped rho-block reads of the
-   Pallas engine, ``pallas_sweeps._rho_spec``).
+   the per-slot rho/pressure planes exchange edge blocks the same way.
 
 After integration + constraints, **migration** moves particles whose
 new cell left the slab: leavers are packed to fixed-capacity buffers by
@@ -52,6 +50,25 @@ from sph_tpu.neighbors import binned_sweeps as BS
 from sph_tpu.physics import constraints
 
 AXIS = "shard"
+
+# Integer fields ride through migration as one packed int32 per row:
+# orig_id[0:22] ghost[22] active[23] valid[24] face+1[26:29] color_group[29]
+_OID_MASK = (1 << 22) - 1
+
+
+def _pack_meta(state: ParticleState) -> jax.Array:
+    return ((state.orig_id & _OID_MASK)
+            | ((state.ghost & 1) << 22)
+            | ((state.active & 1) << 23)
+            | ((state.valid & 1) << 24)
+            | (((jnp.clip(state.face, -1, 5) + 1) & 7) << 26)
+            | ((state.color_group & 1) << 29))
+
+
+def _unpack_meta(meta: jax.Array) -> dict:
+    return dict(orig_id=meta & _OID_MASK, ghost=(meta >> 22) & 1,
+                active=(meta >> 23) & 1, face=((meta >> 26) & 7) - 1,
+                color_group=(meta >> 29) & 1)
 
 
 def make_mesh_slabs(n_devices: int | None = None) -> Mesh:
@@ -215,8 +232,7 @@ def _migrate(state: ParticleState, params: FluidParams, scfg: SlabConfig,
     stay = valid & ~go_up & ~go_down
 
     # Pack rows [pos3 vel3 acc3 rho pres foam]; int fields ride in meta.
-    from sph_tpu.neighbors import planes as PL
-    meta = PL.pack_meta(state, jnp.ones(state.n, bool))
+    meta = _pack_meta(state)
     rows = jnp.concatenate([
         state.pos, state.vel, state.acc,
         state.density[:, None], state.pressure[:, None],
@@ -262,14 +278,13 @@ def _migrate(state: ParticleState, params: FluidParams, scfg: SlabConfig,
     new_valid = ops[0][:keep] == 0
     new_meta = jnp.where(new_valid, ops[1][:keep], 0)
     vals = jnp.stack(ops[2:], 1)[:keep]
-    m = PL.unpack_meta(new_meta)
+    m = _unpack_meta(new_meta)
     iv = new_valid.astype(jnp.int32)
     return ParticleState(
         pos=vals[:, 0:3], vel=vals[:, 3:6], acc=vals[:, 6:9],
         density=vals[:, 9], pressure=vals[:, 10], foam=vals[:, 11],
-        ghost=m.ghost * iv, active=m.active * iv, face=m.face,
-        color_group=m.color_group, valid=iv,
-        orig_id=m.orig_id)
+        ghost=m["ghost"] * iv, active=m["active"] * iv, face=m["face"],
+        color_group=m["color_group"], valid=iv, orig_id=m["orig_id"])
 
 
 def shard_by_slab(state: ParticleState, params: FluidParams,

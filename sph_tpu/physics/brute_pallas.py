@@ -1,23 +1,23 @@
-"""All-pairs WCSPH substep as Pallas TPU kernels (BASELINE config 1).
+"""All-pairs WCSPH substep as two fused Pallas kernels on the Triton route.
 
-``physics/brute_force.py`` is the golden oracle, but its
-``lax.map``-over-tiles evaluation serializes ~1k tiny blocks per pass —
-9.8 ms/substep at 8k particles on a v5e (round-2 PERF table), pure
-latency.  This module keeps the oracle's exact all-pairs O(N^2)
-semantics (BASELINE config 1 mandates brute-force neighbors, not a cell
-list) but evaluates them the TPU way: the whole j-side state resides in
-VMEM transposed to ``[F, N]`` (fields on sublanes, particles on lanes),
-and a grid over i-row blocks computes ``[TI, N]`` pair terms as full-
-width VPU ops — two kernels, mirroring the production table engine:
+``physics/brute_force.py`` is the golden oracle, but its ``lax.map`` x
+``fori_loop`` over 256-row tiles runs as about a thousand tiny serial
+kernels per pass at 8k particles: latency, not arithmetic.  This module
+keeps the oracle's all-pairs O(N^2) semantics (BASELINE config 1
+mandates brute-force neighbors, not a cell list) and evaluates them the
+n-body way: one program per ``BI`` destination rows, looping over
+power-of-two source chunks of ``BJ`` rows held in registers.
 
 1. density (self-pairs INCLUDED, ``SPHFluid.comp:89-106``)
 2. force + semi-implicit-Euler integrate + XSPH (fresh self vs stale
    neighbors, ``SPHFluid.comp:177-201``) + XSPH apply + CFL speed cap
 
-Pair math matches ``physics/common.py`` term for term; only summation
-order differs (lane-reduction tree vs sequential fori), so trajectories
-match the oracle to float32 tolerance — enforced by
-``tests/test_brute_pallas.py``.
+Rows are padded to a multiple of the block with far-away sentinel
+positions, and the kernels mask every source row at or past ``n``.  Pair
+math matches ``physics/common.py`` term for term; only the summation
+order differs, so trajectories match the oracle to float32 tolerance
+(``tests/test_brute_pallas.py``).  The kernels compile for a GPU only;
+the CPU tests run them in Pallas interpret mode.
 """
 from __future__ import annotations
 
@@ -27,137 +27,136 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from sph_tpu.core.params import FluidParams
 from sph_tpu.core.state import ParticleState
-from sph_tpu.neighbors.pallas_sweeps import (
-    _PV_DT, _PV_GX, _PV_GY, _PV_GZ, _PV_H, _PV_H2, _PV_MASS, _PV_MU,
-    _PV_POLY6, _PV_SPIKY, _PV_ST, _PV_VISC_LAP, _COMPILER_PARAMS,
-    _interpret_default, _make_pvec)
 from sph_tpu.physics import common as C
 
-TI = 128         # i rows per program (round-4 TPU corner sweep, seq5:
-JC = 512         # 128:512 = 1.510 ms/substep / 5.43e6 psteps/s at 8k,
-                 # beating 64:1024's 1.685).  j-chunking bounds each
-                 # round's [TI, jc] temporaries register-resident; the
-                 # one-full-pass [TI, N] form spills (2.45 ms).
+BI = 32          # destination rows per program
+BJ = 32          # source rows per inner chunk
+NUM_WARPS = 4
+SENTINEL_POS = 1.0e7
+
+_PI = 3.141592653589
+# pvec slots: scalars the kernels read from one small operand
+(_H, _H2, _MASS, _SPIKY, _VISC_LAP, _POLY6, _MU, _ST,
+ _GX, _GY, _GZ, _DT) = range(12)
 
 
-def _pad_to(x: jax.Array, n: int, fill: float = 0.0) -> jax.Array:
-    if x.shape[0] == n:
-        return x
-    pad = [(0, n - x.shape[0])] + [(0, 0)] * (x.ndim - 1)
-    return jnp.pad(x, pad, constant_values=fill)
+def make_pvec(params: FluidParams, dt: jax.Array) -> jax.Array:
+    h = params.h
+    return jnp.stack([
+        h, h * h, params.mass,
+        -45.0 / (_PI * h**6), 45.0 / (_PI * h**6),
+        315.0 / (64.0 * _PI * h**9),
+        params.viscosity, params.surface_tension,
+        params.gravity[0], params.gravity[1], params.gravity[2],
+        jnp.asarray(dt, jnp.float32),
+    ]).astype(jnp.float32)
 
 
-def _jslices(n: int, jc: int):
-    """Static j-chunk slices: jc <= 0 or >= n gives one full-width pass
-    (the measured-default form); smaller jc bounds each round's [TI, jc]
-    temporaries so Mosaic keeps them register-resident instead of
-    spilling [TI, N] intermediates through VMEM."""
-    step = n if jc <= 0 or jc >= n else jc
-    return [(j0, min(step, n - j0)) for j0 in range(0, n, step)]
-
-
-def _density_kernel(n: int, jc: int, pvec_ref, jref, iref, out_ref):
+def _density_kernel(pvec_ref, px_ref, py_ref, pz_ref, c_ref, rho_ref, *,
+                    n: int, bi: int, bj: int):
     """rho_raw rows: mass * sum_j contrib_j * poly6(r2), self included."""
-    h2 = pvec_ref[_PV_H2]
-    pi = iref[...]                                   # [TI, 128]
-    px, py, pz = pi[:, 0:1], pi[:, 1:2], pi[:, 2:3]
-    rho = None
-    for j0, w_ in _jslices(n, jc):
-        dx = px - jref[0:1, j0:j0 + w_]
-        dy = py - jref[1:2, j0:j0 + w_]
-        dz = pz - jref[2:3, j0:j0 + w_]
+    h2 = pvec_ref[_H2]
+    rows = pl.ds(pl.program_id(0) * bi, bi)
+    px, py, pz = px_ref[rows], py_ref[rows], pz_ref[rows]
+
+    def body(t, acc):
+        j0 = t * bj
+        cols = pl.ds(j0, bj)
+        in_range = (j0 + jnp.arange(bj)) < n
+        dx = px[:, None] - px_ref[cols][None, :]
+        dy = py[:, None] - py_ref[cols][None, :]
+        dz = pz[:, None] - pz_ref[cols][None, :]
         r2 = dx * dx + dy * dy + dz * dz
+        live = (in_range & (c_ref[cols] > 0.0))[None, :] & (r2 < h2)
         d = jnp.maximum(h2 - r2, 0.0)
-        w = jnp.where(r2 < h2, d * d * d, 0.0) * jref[8:9, j0:j0 + w_]
-        part = jnp.sum(w, axis=1, keepdims=True)
-        rho = part if rho is None else rho + part
-    rho = rho * (pvec_ref[_PV_MASS] * pvec_ref[_PV_POLY6])
-    out_ref[...] = jnp.broadcast_to(rho, out_ref.shape)
+        return acc + jnp.sum(jnp.where(live, d * d * d, 0.0), axis=1)
+
+    acc = lax.fori_loop(0, pl.cdiv(n, bj), body,
+                        jnp.zeros((bi,), jnp.float32))
+    rho_ref[rows] = acc * (pvec_ref[_MASS] * pvec_ref[_POLY6])
 
 
-def _force_kernel(n: int, ti: int, jc: int, pvec_ref, jref, iref,
-                  out_ref):
-    """Force + integrate + XSPH + apply + CFL cap for one i-row block.
+def _force_kernel(pvec_ref, px_ref, py_ref, pz_ref, vx_ref, vy_ref, vz_ref,
+                  rho_ref, pres_ref, c_ref,
+                  npx_ref, npy_ref, npz_ref, nvx_ref, nvy_ref, nvz_ref,
+                  ax_ref, ay_ref, az_ref, *, n: int, bi: int, bj: int):
+    """Force + integrate + XSPH + apply + CFL cap for one row block."""
+    h = pvec_ref[_H]
+    h2 = pvec_ref[_H2]
+    mass = pvec_ref[_MASS]
+    spiky = pvec_ref[_SPIKY]
+    visc_lap = pvec_ref[_VISC_LAP]
+    poly6 = pvec_ref[_POLY6]
+    mu = pvec_ref[_MU]
+    dt = pvec_ref[_DT]
 
-    i rows: pos(0:3) vel(3:6) rho(6) pres(7).
-    j rows ([9, N]): pos(0:3) vel(3:6) rho(6) pres(7) contrib(8).
-    out rows: npos(0:3) nvel(3:6) acc(6:9).
-    """
-    h = pvec_ref[_PV_H]
-    h2 = pvec_ref[_PV_H2]
-    mass = pvec_ref[_PV_MASS]
-    dt = pvec_ref[_PV_DT]
-    mu = pvec_ref[_PV_MU]
+    i0 = pl.program_id(0) * bi
+    rows = pl.ds(i0, bi)
+    gi = i0 + jnp.arange(bi)
+    px, py, pz = px_ref[rows], py_ref[rows], pz_ref[rows]
+    vx, vy, vz = vx_ref[rows], vy_ref[rows], vz_ref[rows]
+    rho_i, pres_i = rho_ref[rows], pres_ref[rows]
+    n_chunks = pl.cdiv(n, bj)
 
-    pi = iref[...]                                   # [TI, 128]
-    px, py, pz = pi[:, 0:1], pi[:, 1:2], pi[:, 2:3]
-    vx, vy, vz = pi[:, 3:4], pi[:, 4:5], pi[:, 5:6]
-    rho_i = pi[:, 6:7]
-    pres_i = pi[:, 7:8]
+    def sources(t):
+        """Chunk t's source fields and its [bi, bj] pair mask base."""
+        j0 = t * bj
+        cols = pl.ds(j0, bj)
+        gj = j0 + jnp.arange(bj)
+        rho_j = rho_ref[cols]
+        live_j = (gj < n) & (rho_j > 0.0) & (c_ref[cols] > 0.0)
+        base = live_j[None, :] & (gi[:, None] != gj[None, :])
+        return (px_ref[cols], py_ref[cols], pz_ref[cols], vx_ref[cols],
+                vy_ref[cols], vz_ref[cols], rho_j, pres_ref[cols], base)
 
-    gi = (pl.program_id(0) * ti
-          + lax.broadcasted_iota(jnp.int32, (ti, 1), 0))
-
-    fpx = fpy = fpz = gcx = gcy = gcz = lc = jnp.zeros((ti, 1),
-                                                       jnp.float32)
-    for j0, w_ in _jslices(n, jc):
-        lj = j0 + lax.broadcasted_iota(jnp.int32, (ti, w_), 1)
-        not_self = gi != lj
-        jx, jy, jz = (jref[0:1, j0:j0 + w_], jref[1:2, j0:j0 + w_],
-                      jref[2:3, j0:j0 + w_])
-        jvx, jvy, jvz = (jref[3:4, j0:j0 + w_], jref[4:5, j0:j0 + w_],
-                         jref[5:6, j0:j0 + w_])
-        rho_j = jref[6:7, j0:j0 + w_]
-        pres_j = jref[7:8, j0:j0 + w_]
-        live_j = (rho_j > 0.0) & (jref[8:9, j0:j0 + w_] > 0.0)
-
-        dx = px - jx
-        dy = py - jy
-        dz = pz - jz
+    def force_body(t, carry):
+        fx, fy, fz, gx, gy, gz, lc = carry
+        jx, jy, jz, jvx, jvy, jvz, rho_j, pres_j, base = sources(t)
+        dx = px[:, None] - jx[None, :]
+        dy = py[:, None] - jy[None, :]
+        dz = pz[:, None] - jz[None, :]
         r2 = dx * dx + dy * dy + dz * dz
-        rinv = lax.rsqrt(jnp.maximum(r2, 1e-24))
-        r = r2 * rinv
-        mask = not_self & (r < h) & live_j
-
-        # pair_force_terms (physics/common.py:40-56), w folded into
-        # m/rho
-        m_over_rho = jnp.where(mask, mass / jnp.maximum(rho_j, 1e-12),
-                               0.0)
+        r = jnp.sqrt(r2)
+        mask = base & (r < h)
+        # pair_force_terms (physics/common.py), mu folded into the
+        # viscous term (assemble_acc applies it outside the sum)
+        m_over_rho = jnp.where(
+            mask, mass / jnp.maximum(rho_j, 1e-12)[None, :], 0.0)
         dcl = jnp.maximum(h - r, 0.0)
-        gmag = jnp.where(r2 > 0.0,
-                         pvec_ref[_PV_SPIKY] * dcl * dcl * rinv, 0.0)
-        lapw = pvec_ref[_PV_VISC_LAP] * dcl
-        pscale = -(pres_i + pres_j) * 0.5 * m_over_rho * gmag
-        # mu folds into the per-pair viscous term (assemble_acc applies
-        # it outside the sum; multiplication distributes — fp32-equal
-        # within the oracle tolerance, same as the production table
-        # kernel)
-        vscale = m_over_rho * lapw * mu
-        fpx = fpx + jnp.sum(pscale * dx + vscale * (jvx - vx), axis=1,
-                            keepdims=True)
-        fpy = fpy + jnp.sum(pscale * dy + vscale * (jvy - vy), axis=1,
-                            keepdims=True)
-        fpz = fpz + jnp.sum(pscale * dz + vscale * (jvz - vz), axis=1,
-                            keepdims=True)
+        gmag = jnp.where(r > 0.0,
+                         spiky * dcl * dcl / jnp.maximum(r, 1e-12), 0.0)
+        lapw = m_over_rho * visc_lap * dcl
+        pscale = -(pres_i[:, None] + pres_j[None, :]) * 0.5 \
+            * m_over_rho * gmag
+        vscale = lapw * mu
         gscale = m_over_rho * gmag
-        gcx = gcx + jnp.sum(gscale * dx, axis=1, keepdims=True)
-        gcy = gcy + jnp.sum(gscale * dy, axis=1, keepdims=True)
-        gcz = gcz + jnp.sum(gscale * dz, axis=1, keepdims=True)
-        lc = lc + jnp.sum(m_over_rho * lapw, axis=1, keepdims=True)
+        return (fx + jnp.sum(pscale * dx + vscale * (jvx[None, :]
+                                                     - vx[:, None]), 1),
+                fy + jnp.sum(pscale * dy + vscale * (jvy[None, :]
+                                                     - vy[:, None]), 1),
+                fz + jnp.sum(pscale * dz + vscale * (jvz[None, :]
+                                                     - vz[:, None]), 1),
+                gx + jnp.sum(gscale * dx, 1),
+                gy + jnp.sum(gscale * dy, 1),
+                gz + jnp.sum(gscale * dz, 1),
+                lc + jnp.sum(lapw, 1))
 
-    # assemble_acc + integrate (common.py:79-99)
-    glen = jnp.sqrt(gcx * gcx + gcy * gcy + gcz * gcz)
+    z = jnp.zeros((bi,), jnp.float32)
+    fx, fy, fz, gx, gy, gz, lc = lax.fori_loop(
+        0, n_chunks, force_body, (z, z, z, z, z, z, z))
+
+    # assemble_acc + integrate (common.py)
+    glen = jnp.sqrt(gx * gx + gy * gy + gz * gz)
     stm = jnp.where(glen > C.SURFACE_THRESHOLD,
-                    -pvec_ref[_PV_ST] * lc / jnp.maximum(glen, 1e-30),
-                    0.0)
+                    -pvec_ref[_ST] * lc / jnp.maximum(glen, 1e-30), 0.0)
     rho_safe = jnp.maximum(rho_i, 1e-12)
-    ax = (fpx + stm * gcx + pvec_ref[_PV_GX] * rho_i) / rho_safe
-    ay = (fpy + stm * gcy + pvec_ref[_PV_GY] * rho_i) / rho_safe
-    az = (fpz + stm * gcz + pvec_ref[_PV_GZ] * rho_i) / rho_safe
+    ax = (fx + stm * gx + pvec_ref[_GX] * rho_i) / rho_safe
+    ay = (fy + stm * gy + pvec_ref[_GY] * rho_i) / rho_safe
+    az = (fz + stm * gz + pvec_ref[_GZ] * rho_i) / rho_safe
     nvx = (vx + ax * dt) * C.VELOCITY_DAMPING
     nvy = (vy + ay * dt) * C.VELOCITY_DAMPING
     nvz = (vz + az * dt) * C.VELOCITY_DAMPING
@@ -165,120 +164,87 @@ def _force_kernel(n: int, ti: int, jc: int, pvec_ref, jref, iref,
     npy = py + nvy * dt
     npz = pz + nvz * dt
 
-    # XSPH: fresh self pos/vel vs stale neighbors (common.py /
-    # brute_force.xsph_pass)
-    sx = sy = sz = norm = jnp.zeros((ti, 1), jnp.float32)
-    for j0, w_ in _jslices(n, jc):
-        lj = j0 + lax.broadcasted_iota(jnp.int32, (ti, w_), 1)
-        not_self = gi != lj
-        jx, jy, jz = (jref[0:1, j0:j0 + w_], jref[1:2, j0:j0 + w_],
-                      jref[2:3, j0:j0 + w_])
-        jvx, jvy, jvz = (jref[3:4, j0:j0 + w_], jref[4:5, j0:j0 + w_],
-                         jref[5:6, j0:j0 + w_])
-        rho_j = jref[6:7, j0:j0 + w_]
-        live_j = (rho_j > 0.0) & (jref[8:9, j0:j0 + w_] > 0.0)
-        ddx = npx - jx
-        ddy = npy - jy
-        ddz = npz - jz
-        rr2 = ddx * ddx + ddy * ddy + ddz * ddz
-        xmask = not_self & (rr2 < h2) & live_j
-        dd = jnp.maximum(h2 - rr2, 0.0)
-        w = jnp.where(xmask, pvec_ref[_PV_POLY6] * dd * dd * dd, 0.0)
-        mw = w * mass / jnp.maximum(rho_j, 1e-12)
-        sx = sx + jnp.sum(mw * (jvx - nvx), axis=1, keepdims=True)
-        sy = sy + jnp.sum(mw * (jvy - nvy), axis=1, keepdims=True)
-        sz = sz + jnp.sum(mw * (jvz - nvz), axis=1, keepdims=True)
-        norm = norm + jnp.sum(w, axis=1, keepdims=True)
-    inv = jnp.where(norm > 0.0,
-                    C.XSPH_COEFF / jnp.maximum(norm, 1e-30), 0.0)
+    def xsph_body(t, carry):
+        sx, sy, sz, norm = carry
+        jx, jy, jz, jvx, jvy, jvz, rho_j, _, base = sources(t)
+        dx = npx[:, None] - jx[None, :]
+        dy = npy[:, None] - jy[None, :]
+        dz = npz[:, None] - jz[None, :]
+        r2 = dx * dx + dy * dy + dz * dz
+        d = jnp.maximum(h2 - r2, 0.0)
+        w = jnp.where(base & (r2 < h2), poly6 * d * d * d, 0.0)
+        mw = w * mass / jnp.maximum(rho_j, 1e-12)[None, :]
+        return (sx + jnp.sum(mw * (jvx[None, :] - nvx[:, None]), 1),
+                sy + jnp.sum(mw * (jvy[None, :] - nvy[:, None]), 1),
+                sz + jnp.sum(mw * (jvz[None, :] - nvz[:, None]), 1),
+                norm + jnp.sum(w, 1))
+
+    sx, sy, sz, norm = lax.fori_loop(0, n_chunks, xsph_body, (z, z, z, z))
+    inv = jnp.where(norm > 0.0, C.XSPH_COEFF / jnp.maximum(norm, 1e-30), 0.0)
     nvx = nvx + inv * sx
     nvy = nvy + inv * sy
     nvz = nvz + inv * sz
-
     max_speed = C.CFL_FRACTION * h / jnp.maximum(dt, 1e-6)
     spd = jnp.sqrt(nvx * nvx + nvy * nvy + nvz * nvz)
-    vscl = jnp.where(spd > max_speed,
-                     max_speed / jnp.maximum(spd, 1e-30), 1.0)
+    vscl = jnp.where(spd > max_speed, max_speed / jnp.maximum(spd, 1e-30),
+                     1.0)
 
-    z = jnp.zeros((ti, 128 - 9), jnp.float32)
-    out_ref[...] = jnp.concatenate(
-        [npx, npy, npz, nvx * vscl, nvy * vscl, nvz * vscl, ax, ay, az,
-         z], axis=1)
-
-def _calls(pos, vel, rho, pres, contrib, pvec, interpret: bool,
-           ti: int = TI, jc: int = JC):
-    """Run both kernels over [Np(128-mult), ...] padded arrays."""
-    np_ = pos.shape[0]
-    assert np_ % ti == 0 and np_ % 128 == 0, np_
-
-    jrows = jnp.concatenate([
-        pos.T, vel.T, rho[None, :], pres[None, :],
-        contrib.astype(jnp.float32)[None, :]], axis=0)     # [9, Np]
-
-    def irows(fields):
-        r = jnp.concatenate(fields, axis=1)
-        return jnp.pad(r, ((0, 0), (0, 128 - r.shape[1])))
-
-    grid_spec = lambda: pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(np_ // ti,),
-        in_specs=[
-            pl.BlockSpec((9, np_), lambda i, pv: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((ti, 128), lambda i, pv: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((ti, 128), lambda i, pv: (i, 0),
-                               memory_space=pltpu.VMEM))
-    out_shape = jax.ShapeDtypeStruct((np_, 128), jnp.float32)
-
-    i_d = irows([pos])
-    rho_rows = pl.pallas_call(
-        functools.partial(_density_kernel, np_, jc),
-        grid_spec=grid_spec(), out_shape=out_shape,
-        interpret=interpret, compiler_params=_COMPILER_PARAMS,
-    )(pvec, jrows, i_d)
-    return rho_rows[:, 0], jrows, irows, grid_spec, out_shape
+    for ref, val in ((npx_ref, npx), (npy_ref, npy), (npz_ref, npz),
+                     (nvx_ref, nvx * vscl), (nvy_ref, nvy * vscl),
+                     (nvz_ref, nvz * vscl), (ax_ref, ax), (ay_ref, ay),
+                     (az_ref, az)):
+        ref[rows] = val
 
 
-def substep(state: ParticleState, params: FluidParams,
-            dt: jax.Array, ti: int = TI, jc: int = JC) -> ParticleState:
-    """Drop-in for ``brute_force.substep`` (same all-pairs semantics,
-    Pallas evaluation).  Order-preserving: no sort, rows stay put."""
-    interpret = _interpret_default()
+def _call(kernel, n: int, np_: int, n_out: int, interpret: bool,
+          bi: int, bj: int, name: str):
+    return pl.pallas_call(
+        functools.partial(kernel, n=n, bi=bi, bj=bj),
+        grid=(np_ // bi,),
+        out_shape=[jax.ShapeDtypeStruct((np_,), jnp.float32)] * n_out,
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=1),
+        interpret=interpret,
+        name=name)
+
+
+def padded_rows(n: int, bi: int = BI, bj: int = BJ) -> int:
+    """Row count padded to a multiple of both block sizes."""
+    step = max(bi, bj)
+    return -(-n // step) * step
+
+
+def substep(state: ParticleState, params: FluidParams, dt: jax.Array,
+            interpret: bool = False, bi: int = BI, bj: int = BJ
+            ) -> ParticleState:
+    """Drop-in for ``brute_force.substep`` (same all-pairs semantics, fused
+    kernels).  Order-preserving: no sort, rows stay put."""
     n = state.n
-    np_ = -(-n // 128) * 128
-    pvec = _make_pvec(params, dt)
+    np_ = padded_rows(n, bi, bj)
+    pad = np_ - n
+
+    def padded(x, fill=0.0):
+        return jnp.pad(x, (0, pad), constant_values=fill)
+
+    pvec = make_pvec(params, dt)
     contrib = state.contrib_mask(params.ghost_face_active)
+    pos = [padded(state.pos[:, k], SENTINEL_POS) for k in range(3)]
+    vel = [padded(state.vel[:, k]) for k in range(3)]
+    c = padded(contrib.astype(jnp.float32))
 
-    pos = _pad_to(state.pos, np_, 1.0e7)        # sentinel pad rows
-    vel = _pad_to(state.vel, np_)
-    contrib_p = _pad_to(contrib.astype(jnp.float32), np_)
-
-    rho_raw, _, irows, grid_spec, out_shape = _calls(
-        pos, vel, _pad_to(state.density, np_),
-        _pad_to(state.pressure, np_), contrib_p, pvec, interpret, ti,
-        jc)
-
+    rho_raw, = _call(_density_kernel, n, np_, 1, interpret, bi, bj,
+                     "sph_brute_density")(pvec, *pos, c)
     density, pressure = C.finish_density(
-        rho_raw[:n], state.ghost, contrib, state.density,
-        state.pressure, params)
+        rho_raw[:n], state.ghost, contrib, state.density, state.pressure,
+        params)
 
-    rho_p = _pad_to(density, np_)
-    pres_p = _pad_to(pressure, np_)
-    jrows = jnp.concatenate([
-        pos.T, vel.T, rho_p[None, :], pres_p[None, :],
-        contrib_p[None, :]], axis=0)
-    i_f = irows([pos, vel, rho_p[:, None], pres_p[:, None]])
-    out = pl.pallas_call(
-        functools.partial(_force_kernel, np_, ti, jc),
-        grid_spec=grid_spec(), out_shape=out_shape,
-        interpret=interpret, compiler_params=_COMPILER_PARAMS,
-    )(pvec, jrows, i_f)[:n]
-
-    new_pos = out[:, 0:3]
-    new_vel = out[:, 3:6]
-    acc = out[:, 6:9]
+    out = _call(_force_kernel, n, np_, 9, interpret, bi, bj,
+                "sph_brute_force_xsph")(
+        pvec, *pos, *vel, padded(density), padded(pressure), c)
+    new_pos = jnp.stack(out[0:3], axis=1)[:n]
+    new_vel = jnp.stack(out[3:6], axis=1)[:n]
+    acc = jnp.stack(out[6:9], axis=1)[:n]
     foam = C.foam_update(state.foam, new_vel, density, params)
 
     fluid = state.fluid_mask()

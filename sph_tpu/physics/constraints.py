@@ -199,12 +199,12 @@ def apply_container(state: ParticleState, params: FluidParams) -> ParticleState:
     """
     rot = rotation_matrix(params.box_euler_deg)          # world_from_box
     rel = state.pos - params.box_center[None, :]
-    p_local = rel @ rot                                  # R^T p per row
+    p_local = P.rows_times(rel, rot)                     # R^T p per row
     q_local, n_local, hit = project_shape(
         p_local, params.shape_type, params.box_half, params.shape_aux)
 
-    n_world = _safe_unit(n_local @ rot.T)
-    new_pos = params.box_center[None, :] + q_local @ rot.T
+    n_world = _safe_unit(P.rows_times(n_local, rot.T))
+    new_pos = params.box_center[None, :] + P.rows_times(q_local, rot.T)
     vn = jnp.sum(state.vel * n_world, axis=-1, keepdims=True)
     v_n = vn * n_world
     v_t = state.vel - v_n

@@ -38,7 +38,7 @@ def wave_impulse(state: ParticleState, amplitude, wavelength, phase, direction,
     nd = jnp.where(dlen > 1e-6, d / jnp.maximum(dlen, 1e-12),
                    jnp.array([0.0, 1.0, 0.0], jnp.float32))
     k = 2.0 * jnp.pi / jnp.maximum(wavelength, 1e-6)
-    theta = k * (state.pos @ nd) + phase
+    theta = k * jnp.sum(state.pos * nd[None, :], axis=-1) + phase
     kick = amplitude * jnp.sin(theta)
     ok = (_live(state) & (state.pos[:, 1] >= y_min) & (state.pos[:, 1] <= y_max)
           & (wavelength > 1e-6) & (amplitude != 0.0))
@@ -55,7 +55,8 @@ def vortex_impulse(state: ParticleState, params: FluidParams,
     radius = jnp.maximum(jnp.maximum(half[0], half[2]), 1e-4)
 
     rel = state.pos - params.box_center[None, :]
-    radial = rel - axis[None, :] * (rel @ axis)[:, None]
+    radial = rel - axis[None, :] * jnp.sum(rel * axis[None, :], axis=-1,
+                                           keepdims=True)
     r = jnp.sqrt(jnp.sum(radial * radial, axis=-1))
     r_hat = radial / jnp.maximum(r, 1e-12)[:, None]
     t_hat = jnp.cross(jnp.broadcast_to(axis, r_hat.shape), r_hat)

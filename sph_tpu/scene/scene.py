@@ -65,7 +65,7 @@ def params_from_settings(s: SceneSettings) -> FluidParams:
 
 class Scene:
     def __init__(self, settings: Optional[SceneSettings] = None,
-                 neighbor_impl: str = "binned", seed: int = 0,
+                 neighbor_impl: str = "cell", seed: int = 0,
                  preset_dir: str = "presets"):
         self.settings = settings or SceneSettings()
         self.neighbor_impl = neighbor_impl
@@ -140,7 +140,7 @@ class Scene:
         grid silently clamps outlying particles into edge cells. When
         the required dims exceed the current grid, rebuild the config
         with each growing axis bucketed up to the next multiple of 8
-        cells — the bucket amortizes recompiles (the TPU analogue of
+        cells — the bucket amortizes recompiles (the analogue of
         the realloc) under a continuous grow drag. Shrinks keep the
         larger grid (harmless: extra empty cells) until the next
         respawn resizes exactly."""
@@ -477,9 +477,11 @@ class Scene:
                          brightness_threshold: float = 0.5) -> int:
         """PNG bright pixels -> 3D attractor targets in the container's
         XY plane (``Scene0p.cpp:1805-1852``).  Returns target count."""
-        from PIL import Image
-        img = np.asarray(
-            Image.open(path).convert("L"), np.float32) / 255.0
+        from sph_tpu.viz.splat import load_png
+        rgb = load_png(path).astype(np.float32)[..., :3] / 255.0
+        # ITU-R 601 luma, as an "L" conversion takes it (grey stays grey)
+        img = (rgb @ np.array([0.299, 0.587, 0.114], np.float32)
+               if rgb.shape[-1] == 3 else rgb[..., 0])
         hpx, wpx = img.shape
         ys, xs = np.nonzero(img > brightness_threshold)
         if len(xs) == 0:

@@ -4,7 +4,7 @@ palette system (``shaders/particleImpostor.frag:44-258``, duplicated in
 animation, two-color groups, HSV grade, and fake-sphere lit shading.
 
 Everything is pure ``jax.numpy`` over ``[N]`` particle batches (f32), so
-palette evaluation jits and fuses into the headless export path on TPU.
+palette evaluation jits and fuses into the headless export path on the device.
 """
 from __future__ import annotations
 

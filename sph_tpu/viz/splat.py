@@ -17,6 +17,8 @@ host-side.  Off the hot path by design (SURVEY.md §7 item 11).
 from __future__ import annotations
 
 import functools
+import struct
+import zlib
 from typing import Optional, Tuple
 
 import jax
@@ -191,8 +193,82 @@ def _native_lib():
 
 
 def save_png(img: np.ndarray, path: str) -> None:
-    from PIL import Image
-    Image.fromarray(img, "RGB").save(path)
+    """Write an [H, W, 3] uint8 RGB image as an 8-bit PNG (stdlib only)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w, _ = img.shape
+    # filter type 0 (None) on every scanline
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          img.reshape(h, w * 3)], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6))
+                + chunk(b"IEND", b""))
+
+
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # color type -> samples/pixel
+
+
+def load_png(path: str) -> np.ndarray:
+    """Read an 8-bit, non-interlaced grey/RGB(A) PNG as [H, W, C] uint8."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        n, = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if hdr is None or not idat:
+        raise ValueError(f"{path}: PNG without IHDR or IDAT chunk")
+    w, h, depth, ctype, _, _, interlace = hdr
+    if depth != 8 or interlace or ctype not in _PNG_CHANNELS:
+        raise ValueError(f"{path}: only 8-bit non-interlaced grey/RGB(A) "
+                         f"PNGs are supported")
+    c = _PNG_CHANNELS[ctype]
+    stride = w * c
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.int32)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype, line = raw[y, 0], raw[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = line
+        elif ftype == 2:
+            cur = (line + prev) & 0xFF
+        else:
+            # Sub / Average / Paeth depend on the pixel to the left
+            cur = np.zeros(stride, np.int32)
+            for x in range(stride):
+                a = cur[x - c] if x >= c else 0
+                b = prev[x]
+                d = prev[x - c] if x >= c else 0
+                if ftype == 1:
+                    pred = a
+                elif ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    p = a + b - d
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - d)
+                    pred = a if pa <= pb and pa <= pc else (
+                        b if pb <= pc else d)
+                cur[x] = (line[x] + pred) & 0xFF
+        out[y] = cur
+        prev = cur
+    return out.astype(np.uint8).reshape(h, w, c)
 
 
 def render_frame_mesh(state, vp: P.VizParams, cam: OrbitCamera,

@@ -168,7 +168,7 @@ def test_offline_matches_live():
 
 
 def test_mp3_decode_via_external_matches_wav_twin(tmp_path, monkeypatch):
-    """MP3 reel parity (VERDICT r1 missing #1): decode_to_mono routes
+    """MP3 reel parity: decode_to_mono routes
     compressed formats through an external WAV-emitting decoder
     subprocess (the reference's dr_mp3 role).  The sandbox ships no
     codec, so `cat` stands in as the decoder over a WAV-bytes fixture —
@@ -209,7 +209,7 @@ def test_mp3_decode_without_decoder_raises(tmp_path, monkeypatch):
 
 
 def test_system_capture_source_streams_pcm_through_reactor(tmp_path):
-    """Live system-audio capture (VERDICT r1 missing #2): a generated
+    """Live system-audio capture: a generated
     loopback stream (a subprocess emitting s16le PCM on stdout, the
     parec protocol) must drive the reactor's envelopes through the
     shared DSP."""

@@ -78,10 +78,10 @@ def test_reel_export_deterministic(tmp_path):
                       fps=30, width=64, height=96)
     r2 = export_reel(make_scene(), cfg2, analysis=_synthetic_analysis())
 
-    from PIL import Image
+    from sph_tpu.viz.splat import load_png
     for f in range(4):
-        a = np.asarray(Image.open(tmp_path / "a" / f"frame_{f:05d}.png"))
-        b = np.asarray(Image.open(tmp_path / "b" / f"frame_{f:05d}.png"))
+        a = load_png(str(tmp_path / "a" / f"frame_{f:05d}.png"))
+        b = load_png(str(tmp_path / "b" / f"frame_{f:05d}.png"))
         np.testing.assert_array_equal(a, b)
 
 
@@ -111,7 +111,7 @@ def test_preview_size_fit():
 
 
 def test_reel_preview_reduced_res(tmp_path):
-    """reel --preview (VERDICT r2 missing #3): same deterministic
+    """reel --preview: same deterministic
     pipeline at window-fitted reduced res, frames in <out>_preview."""
     from sph_tpu.scene.reel import preview_reel
 
@@ -125,7 +125,7 @@ def test_reel_preview_reduced_res(tmp_path):
     r = preview_reel(scene, cfg, window_w=96, window_h=64,
                      analysis=_synthetic_analysis(2))
     assert r.ok and r.frames_written == 2
-    from PIL import Image
-    img = Image.open(tmp_path / "reel_preview" / "frame_00000.png")
-    assert img.size == (36, 64)    # 1080:1920 aspect into 96x64
+    from sph_tpu.viz.splat import load_png
+    img = load_png(str(tmp_path / "reel_preview" / "frame_00000.png"))
+    assert img.shape[1::-1] == (36, 64)    # 1080:1920 aspect into 96x64
     assert not os.path.exists(tmp_path / "reel")   # full export untouched

@@ -2,7 +2,7 @@
 
 Runs on the virtual 8-device CPU mesh (conftest sets
 xla_force_host_platform_device_count); the same code path targets real
-multi-chip meshes over ICI.
+multi-GPU meshes.
 """
 import numpy as np
 import pytest
@@ -70,265 +70,3 @@ def test_slab_migration_conserves_particles():
     sth = jax.device_get(st)
     assert int(np.asarray(sth.valid).sum()) == n0
     assert not np.isnan(np.asarray(sth.pos)).any()
-
-
-@pytest.mark.slow
-@pytest.mark.skipif(len(jax.devices()) < 4, reason="needs >=4 devices")
-def test_slab_pallas_matches_single_device_pallas():
-    """VERDICT r1 weak #4: the multi-chip slab engine must drive the
-    PRODUCTION Pallas kernels, not just the binned XLA engine.  The
-    z-major slab run (ppermute table/occ/rho halos) must match the
-    single-device pallas trajectory."""
-    from sph_tpu.parallel import slab_pallas
-
-    state, params, sim = _setup(n=1024, half=(5.0, 5.0, 5.0))
-    simp = SimConfig(n=state.n, grid_dims=sim.grid_dims,
-                     neighbor_impl="pallas")
-    n_dev = 4
-    mesh = slabs.make_mesh_slabs(n_dev)
-    scfg = slabs.make_slab_config(simp, n_dev, state.n)
-
-    n_sub = 3
-    buf = SceneBuffers.create(simp)
-    ref, _ = run_substeps(state, params, buf, params.dt, n_sub, simp)
-
-    st = slabs.shard_by_slab(state, params, scfg, mesh)
-    step = slab_pallas.make_slab_pallas_substep(mesh, scfg)
-    sbuf = SceneBuffers.create(simp)
-    for _ in range(n_sub):
-        st, sbuf = step(st, params, params.dt, sbuf)
-    st = jax.device_get(st)
-
-    rid = np.asarray(ref.orig_id)[np.asarray(ref.valid) > 0]
-    rpos = np.asarray(ref.pos)[np.asarray(ref.valid) > 0]
-    sid = np.asarray(st.orig_id)[np.asarray(st.valid) > 0]
-    spos = np.asarray(st.pos)[np.asarray(st.valid) > 0]
-    assert len(sid) == len(rid), "particles lost in migration"
-    ra = rpos[np.argsort(rid, kind="stable")]
-    sa = spos[np.argsort(sid, kind="stable")]
-    err = np.abs(ra - sa).max()
-    assert err < 1e-4, f"slab-pallas trajectory diverged: {err}"
-
-
-@pytest.mark.slow
-@pytest.mark.skipif(len(jax.devices()) < 4, reason="needs >=4 devices")
-def test_slab_pallas_fountain_routes_respawns_across_slabs():
-    """Fountain respawns teleport particles to the nozzle slab — any
-    number of slabs away (round 1 excluded these modes).  The
-    all_to_all router must deliver them and match the single-device
-    pallas trajectory (respawn randomness is keyed on orig_id, so it is
-    decomposition-independent)."""
-    from sph_tpu.parallel import slab_pallas
-
-    state, params, sim = _setup(n=1024, half=(5.0, 5.0, 5.0))
-    simp = SimConfig(n=state.n, grid_dims=sim.grid_dims,
-                     neighbor_impl="pallas", fountain_mode=True)
-    n_dev = 4
-    mesh = slabs.make_mesh_slabs(n_dev)
-    scfg = slabs.make_slab_config(simp, n_dev, state.n)
-
-    n_sub = 3
-    buf = SceneBuffers.create(simp)
-    ref, _ = run_substeps(state, params, buf, params.dt, n_sub, simp)
-
-    st = slabs.shard_by_slab(state, params, scfg, mesh)
-    step = slab_pallas.make_slab_pallas_substep(mesh, scfg,
-                                                fountain_mode=True)
-    sbuf = SceneBuffers.create(simp)
-    for _ in range(n_sub):
-        st, sbuf = step(st, params, params.dt, sbuf)
-    st = jax.device_get(st)
-
-    rid = np.asarray(ref.orig_id)[np.asarray(ref.valid) > 0]
-    rpos = np.asarray(ref.pos)[np.asarray(ref.valid) > 0]
-    sid = np.asarray(st.orig_id)[np.asarray(st.valid) > 0]
-    spos = np.asarray(st.pos)[np.asarray(st.valid) > 0]
-    assert len(sid) == len(rid), "particles lost in cross-slab routing"
-    ra = rpos[np.argsort(rid, kind="stable")]
-    sa = spos[np.argsort(sid, kind="stable")]
-    err = np.abs(ra - sa).max()
-    assert err < 1e-4, f"fountain slab-pallas trajectory diverged: {err}"
-
-@pytest.mark.slow
-@pytest.mark.skipif(len(jax.devices()) < 4, reason="needs >=4 devices")
-def test_slab_pallas_river_matches_single_device():
-    """River mode under slabs (VERDICT r2 weak #7): terrain + channel +
-    stream-emit respawns (which TELEPORT particles along global z — the
-    slab axis) must match the single-device pallas trajectory through
-    the all_to_all router."""
-    from sph_tpu.parallel import slab_pallas
-    from sph_tpu.scene.river import (RiverSpec, generate_river_terrain,
-                                     river_params)
-
-    half = (5.0, 5.0, 5.0)
-    state, params, sim = _setup(n=1024, half=half)
-    spec = RiverSpec.random(3)
-    terrain = generate_river_terrain(spec, (0.0, 0.0, 0.0), half,
-                                     res=sim.terrain_res)
-    params = river_params(params, spec, (0.0, 0.0, 0.0), half)
-    # force z-based respawns: everything past z=0 teleports to the
-    # emitter end of the channel (slab 0/1 territory on a 4-slab mesh)
-    params = params.replace(
-        river_sink_z_max=jnp.float32(0.0),
-        river_emitter_pos=jnp.asarray([0.0, 1.0, -4.5], jnp.float32),
-        river_sink_y=jnp.float32(-20.0))
-    simp = SimConfig(n=state.n, grid_dims=sim.grid_dims,
-                     neighbor_impl="pallas", river_mode=True)
-    n_dev = 4
-    mesh = slabs.make_mesh_slabs(n_dev)
-    scfg = slabs.make_slab_config(simp, n_dev, state.n)
-
-    from sph_tpu.engine.step import SceneBuffers as SB
-    n_sub = 3
-    buf = SB.create(simp).replace(terrain=jnp.asarray(terrain))
-    ref, _ = run_substeps(state, params, buf, params.dt, n_sub, simp)
-    # the sink must actually have fired, else the router isn't tested
-    rvalid = np.asarray(ref.valid) > 0
-    assert (np.asarray(ref.pos)[rvalid][:, 2] <= 0.0 + 1e-3).any()
-
-    st = slabs.shard_by_slab(state, params, scfg, mesh)
-    step = slab_pallas.make_slab_pallas_substep(mesh, scfg,
-                                                river_mode=True)
-    sbuf = SB.create(simp).replace(terrain=jnp.asarray(terrain))
-    for _ in range(n_sub):
-        st, sbuf = step(st, params, params.dt, sbuf)
-    st = jax.device_get(st)
-
-    rid = np.asarray(ref.orig_id)[rvalid]
-    rpos = np.asarray(ref.pos)[rvalid]
-    sid = np.asarray(st.orig_id)[np.asarray(st.valid) > 0]
-    spos = np.asarray(st.pos)[np.asarray(st.valid) > 0]
-    assert len(sid) == len(rid), "particles lost in river routing"
-    ra = rpos[np.argsort(rid, kind="stable")]
-    sa = spos[np.argsort(sid, kind="stable")]
-    err = np.abs(ra - sa).max()
-    assert err < 1e-4, f"slab-pallas river trajectory diverged: {err}"
-
-
-@pytest.mark.slow
-@pytest.mark.skipif(len(jax.devices()) < 4, reason="needs >=4 devices")
-def test_slab_pallas_ghosts_hoisted_builder():
-    """Ghost boundary particles under slabs: the per-frame ghost-table
-    builder (hoisted out of the substep, VERDICT r2 weak #7) must match
-    the single-device pallas engine with ghost shells."""
-    from sph_tpu.core.params import compute_grid_dims as cgd
-    from sph_tpu.parallel import slab_pallas
-
-    half = (4.0, 4.0, 4.0)
-    spawn = S.concat_spawns(
-        S.spawn_standard(512, h=0.28, box_half=half, seed=1),
-        S.spawn_ghost_box_shell(h=0.28, box_half=half))
-    state = S.state_from_spawn(spawn)
-    params = FluidParams.default(
-        box_half=np.asarray(half, np.float32)).derive_mass()
-    dims = cgd(SHAPE_BOX, half, (0, 0, 0), 0.28)
-    simp = SimConfig(n=state.n, grid_dims=dims, neighbor_impl="pallas")
-    n_dev = 4
-    mesh = slabs.make_mesh_slabs(n_dev)
-    scfg = slabs.make_slab_config(simp, n_dev, state.n)
-
-    n_sub = 2
-    buf = SceneBuffers.create(simp)
-    ref, _ = run_substeps(state, params, buf, params.dt, n_sub, simp)
-
-    st = slabs.shard_by_slab(state, params, scfg, mesh)
-    build = slab_pallas.make_slab_ghost_builder(mesh, scfg)
-    step = slab_pallas.make_slab_pallas_substep(mesh, scfg,
-                                                has_ghosts=True)
-    ghosts = build(st, params)          # once per frame
-    sbuf = SceneBuffers.create(simp)
-    for _ in range(n_sub):
-        st, sbuf = step(st, params, params.dt, sbuf, ghosts)
-    st = jax.device_get(st)
-
-    def fluid_rows(s):
-        m = (np.asarray(s.valid) > 0) & (np.asarray(s.ghost) == 0)
-        ids = np.asarray(s.orig_id)[m]
-        pos = np.asarray(s.pos)[m]
-        return ids, pos
-
-    rid, rpos = fluid_rows(ref)
-    sid, spos = fluid_rows(st)
-    assert len(sid) == len(rid)
-    ra = rpos[np.argsort(rid, kind="stable")]
-    sa = spos[np.argsort(sid, kind="stable")]
-    err = np.abs(ra - sa).max()
-    assert err < 1e-4, f"slab-pallas ghost trajectory diverged: {err}"
-
-
-@pytest.mark.slow
-@pytest.mark.skipif(len(jax.devices()) < 4, reason="needs >=4 devices")
-def test_slab_pallas_overflow_exact_matches_single_device():
-    """Slab exact-overflow fallback (round-4): when a cell exceeds
-    capacity, the slab engine must give rank-overflow rows the same
-    oracle physics as the single-device engine's ``_overflow_nbr``
-    (table-gathered neighborhood + all_gather'd global ovf pairs),
-    not a ballistic step.  cell_capacity=4 forces overflow."""
-    from sph_tpu.core.params import grid_min
-    from sph_tpu.neighbors import planes as PL
-    from sph_tpu.parallel import slab_pallas
-
-    # 6 particles per cell in a 3x2xZ block SPANNING slab boundaries
-    # (z is the slab axis): ranks 4-5 overflow capacity 4, and the
-    # overflow cells' 27-neighborhoods cross slab edges, exercising
-    # the halo-row table gather and the all_gather'd ovf<->ovf pairs
-    half = (3.0, 3.0, 3.0)
-    h = 0.4
-    params = FluidParams.default(
-        h=h, box_half=np.asarray(half, np.float32)).derive_mass()
-    dims = compute_grid_dims(SHAPE_BOX, half, (0, 0, 0), h)
-    gmin = np.asarray(grid_min(params), np.float32)
-    rng = np.random.RandomState(7)
-    pos = []
-    for i in range(6, 9):
-        for j in range(4, 6):
-            for k in range(3, min(12, dims[2] - 1)):
-                base = gmin + (np.array([i, j, k], np.float32) + 0.5) * h
-                for _ in range(6):
-                    pos.append(base + (rng.rand(3).astype(np.float32)
-                                       - 0.5) * 0.3 * h)
-    pos = np.stack(pos)
-    n = pos.shape[0]
-    spawn = S.SpawnResult(
-        pos=pos, vel=np.zeros((n, 3), np.float32),
-        ghost=np.zeros((n,), np.int32),
-        face=np.full((n,), -1, np.int32),
-        color_group=np.zeros((n,), np.int32), count=n)
-    state = S.state_from_spawn(spawn)
-    simp = SimConfig(n=state.n, grid_dims=dims,
-                     neighbor_impl="pallas", cell_capacity=4)
-    n_dev = 4
-    mesh = slabs.make_mesh_slabs(n_dev)
-    scfg = slabs.make_slab_config(simp, n_dev, state.n)
-    assert scfg.cell_capacity == 4
-
-    # the fixture must actually overflow, else the test is vacuous
-    geom = PL.geom_for(simp)
-    key = PL.compute_keys_ymajor(state.pos, state.fluid_mask(), params,
-                                 geom)
-    skey = np.sort(np.asarray(key))
-    rank = np.asarray(PL._ranks(jnp.asarray(skey)))
-    n_ovf = int(((rank >= simp.cell_capacity) &
-                 (skey < geom.num_cells)).sum())
-    assert n_ovf > 0, "fixture does not overflow at capacity 4"
-
-    n_sub = 3
-    buf = SceneBuffers.create(simp)
-    ref, _ = run_substeps(state, params, buf, params.dt, n_sub, simp)
-
-    st = slabs.shard_by_slab(state, params, scfg, mesh)
-    step = slab_pallas.make_slab_pallas_substep(mesh, scfg)
-    sbuf = SceneBuffers.create(simp)
-    for _ in range(n_sub):
-        st, sbuf = step(st, params, params.dt, sbuf)
-    st = jax.device_get(st)
-
-    rid = np.asarray(ref.orig_id)[np.asarray(ref.valid) > 0]
-    rpos = np.asarray(ref.pos)[np.asarray(ref.valid) > 0]
-    sid = np.asarray(st.orig_id)[np.asarray(st.valid) > 0]
-    spos = np.asarray(st.pos)[np.asarray(st.valid) > 0]
-    assert len(sid) == len(rid), "particles lost"
-    ra = rpos[np.argsort(rid, kind="stable")]
-    sa = spos[np.argsort(sid, kind="stable")]
-    err = np.abs(ra - sa).max()
-    assert err < 1e-4, f"slab overflow fallback diverged: {err}"

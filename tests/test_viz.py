@@ -186,7 +186,7 @@ def test_native_ssfr_splat_matches_numpy(monkeypatch):
 
 
 # --- palette math pinned numerically to the GLSL formulas ---
-# (VERDICT r1 weak #7: beyond structural checks, assert per-palette
+# (beyond structural checks, assert per-palette
 # values against hand-evaluated particleImpostor.frag constants)
 
 def _vp(pid, **kw):
